@@ -14,10 +14,10 @@ sys.path.insert(
 import jax.numpy as jnp
 import numpy as np
 
-import sparsematrixmultiplicationmpi_tpu as smt
-from sparsematrixmultiplicationmpi_tpu.io.generate import cop20k_like
-from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format, spmm_any
-from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+import sparsematrixmultiplicationmpi_jax as smt
+from sparsematrixmultiplicationmpi_jax.io.generate import cop20k_like
+from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format, spmm_any
+from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
 
 def main():

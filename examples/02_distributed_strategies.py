@@ -3,7 +3,7 @@
 Run on CPU with virtual devices:
   JAX_PLATFORM_NAME=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/02_distributed_strategies.py
-or on a TPU slice directly.
+or on a multi-GPU host directly.
 """
 
 import os
@@ -17,10 +17,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import sparsematrixmultiplicationmpi_tpu as smt
-from sparsematrixmultiplicationmpi_tpu.bench.harness import run_benchmark
-from sparsematrixmultiplicationmpi_tpu.io.generate import cop20k_like
-from sparsematrixmultiplicationmpi_tpu.parallel import get_strategy, make_mesh
+import sparsematrixmultiplicationmpi_jax as smt
+from sparsematrixmultiplicationmpi_jax.bench.harness import run_benchmark
+from sparsematrixmultiplicationmpi_jax.io.generate import cop20k_like
+from sparsematrixmultiplicationmpi_jax.parallel import get_strategy, make_mesh
 
 
 def main():

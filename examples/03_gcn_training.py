@@ -14,12 +14,12 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from sparsematrixmultiplicationmpi_tpu.formats.matrix import BucketedELL
-from sparsematrixmultiplicationmpi_tpu.models import (
+from sparsematrixmultiplicationmpi_jax.formats.matrix import BucketedELL
+from sparsematrixmultiplicationmpi_jax.models import (
     gcn_forward, gcn_loss, init_gcn, make_train_step, normalize_adjacency,
     synthetic_node_classification,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.ell import spmm_bucketed
+from sparsematrixmultiplicationmpi_jax.ops.ell import spmm_bucketed
 
 
 def main():

@@ -1,7 +1,7 @@
 // Fast Matrix Market coordinate-file parser.
 //
 // Native-code counterpart of the framework's Python loader
-// (sparsematrixmultiplicationmpi_tpu/io/mtx.py), replacing the reference
+// (sparsematrixmultiplicationmpi_jax/io/mtx.py), replacing the reference
 // loader's hot path ("Source Code/utils.cpp:70-185": whole-file iostream
 // extraction, O(nnz) single-threaded) with an mmap-free buffered read and
 // multithreaded hand-rolled number parsing. Exposes a C ABI consumed via

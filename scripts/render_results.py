@@ -5,14 +5,14 @@ The sweep itself renders on completion; this standalone renderer covers
 interrupted runs (the checkpoint CSV is append-only and resumable).
 
 Run: JAX_PLATFORM_NAME=cpu python scripts/render_results.py \
-        [csv=results/tpu_v5e_sweep.csv] [outdir=results]
+        [csv=results/sweep.csv] [outdir=results]
 """
 import csv
 import sys
 
 
 def load_records(path):
-    from sparsematrixmultiplicationmpi_tpu.bench.harness import BenchRecord
+    from sparsematrixmultiplicationmpi_jax.bench.harness import BenchRecord
 
     def _f(x):
         return float(x) if x not in (None, "") else None
@@ -38,15 +38,17 @@ def load_records(path):
 
 
 def main():
-    path = sys.argv[1] if len(sys.argv) > 1 else "results/tpu_v5e_sweep.csv"
+    path = sys.argv[1] if len(sys.argv) > 1 else "results/sweep.csv"
     outdir = sys.argv[2] if len(sys.argv) > 2 else "results"
-    from sparsematrixmultiplicationmpi_tpu.bench.plots import render_all
-    from sparsematrixmultiplicationmpi_tpu.bench.report import render_report
+    from sparsematrixmultiplicationmpi_jax.bench.plots import render_all
+    from sparsematrixmultiplicationmpi_jax.bench.report import render_report
 
     records = load_records(path)
     paths = render_all(records, f"{outdir}/figures")
+    kinds = sorted({r.device_kind for r in records})
     render_report(records, f"{outdir}/REPORT.md",
-                  title="TPU v5e results — matrix x k x strategy sweep")
+                  title=f"{', '.join(kinds)} results — matrix x k x "
+                        "strategy sweep")
     print(f"{len(records)} records -> {len(paths)} figures + REPORT.md")
 
 

@@ -1,21 +1,21 @@
 #!/usr/bin/env python
-"""Model-level TPU benchmarks: GCN training, CG solve, PageRank.
+"""Model-level GPU benchmarks: GCN training, CG solve, PageRank.
 
-Run from the repo root on the accelerator host (~15 min):
-    nohup python scripts/run_models_bench.py > /tmp/models_bench.log 2>&1 &
-Writes results/models_tpu.json.
+Run from the repo root on a GPU machine:
+    python scripts/run_models_bench.py
+Writes results/models.json, labelled with the device kind.
 """
 import json, time
 import jax, jax.numpy as jnp, numpy as np, optax
-from sparsematrixmultiplicationmpi_tpu.formats.banded import BandedBlocks
-from sparsematrixmultiplicationmpi_tpu.formats.matrix import BucketedELL
-from sparsematrixmultiplicationmpi_tpu.io.generate import banded_csr, cop20k_like
-from sparsematrixmultiplicationmpi_tpu.models import (
+from sparsematrixmultiplicationmpi_jax.formats.banded import BandedBlocks
+from sparsematrixmultiplicationmpi_jax.formats.matrix import BucketedELL
+from sparsematrixmultiplicationmpi_jax.io.generate import banded_csr, cop20k_like
+from sparsematrixmultiplicationmpi_jax.models import (
     init_gcn, make_train_step, normalize_adjacency, pagerank,
     synthetic_node_classification, conjugate_gradient)
-from sparsematrixmultiplicationmpi_tpu.models.pagerank import _normalize_columns
-from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format, spmm_any
-from sparsematrixmultiplicationmpi_tpu.ops.autodiff import make_symmetric_spmm
+from sparsematrixmultiplicationmpi_jax.models.pagerank import _normalize_columns
+from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format, spmm_any
+from sparsematrixmultiplicationmpi_jax.ops.autodiff import make_symmetric_spmm
 
 results = {}
 
@@ -50,7 +50,7 @@ import dataclasses
 coo = spd_csr.to_coo()
 i, j = np.asarray(coo.row_indices), np.asarray(coo.col_indices)
 vals = np.abs(np.asarray(coo.values))
-from sparsematrixmultiplicationmpi_tpu.io.mtx import expand_and_build_csr
+from sparsematrixmultiplicationmpi_jax.io.mtx import expand_and_build_csr
 sym = expand_and_build_csr(np.concatenate([i, j]), np.concatenate([j, i]),
                            np.concatenate([vals, vals]) * 0.01,
                            121_192, 121_192, False)
@@ -94,9 +94,9 @@ s = float(r.sum()); it = int(it)
 dt = time.perf_counter() - t0
 
 # Steady-state per-iteration cost via the two-point slope (the single
-# while-loop dispatch above is dominated by remote dispatch/fetch
-# latency — VERDICT round-1 weak #6): run fixed-iteration variants at
-# two chain lengths; the slope cancels every per-dispatch cost.
+# while-loop dispatch above includes dispatch/fetch latency): run
+# fixed-iteration variants at two chain lengths; the slope cancels every
+# per-dispatch cost.
 import functools
 
 @functools.partial(jax.jit, static_argnums=1)
@@ -109,7 +109,7 @@ def timed_fixed(iters_n):
     for _ in range(3):
         t0 = time.perf_counter()
         rr, _ = pr_fixed(op3, iters_n)
-        float(rr[0])  # value fetch = the only reliable barrier here
+        float(rr[0])  # value fetch: a true completion barrier
         best = min(best, time.perf_counter() - t0)
     return best
 
@@ -125,6 +125,7 @@ results["pagerank_121k"] = {
     "rank_sum": round(s, 6)}
 print(results["pagerank_121k"], flush=True)
 
-with open("results/models_tpu.json", "w") as fo:
-    json.dump({"hardware": "TPU v5e (1 chip)", "dtype": "float32", **results}, fo, indent=2)
-print("wrote results/models_tpu.json", flush=True)
+with open("results/models.json", "w") as fo:
+    json.dump({"hardware": jax.devices()[0].device_kind, "dtype": "float32",
+               **results}, fo, indent=2)
+print("wrote results/models.json", flush=True)

@@ -1,5 +1,6 @@
-"""Auto format-routing regressions — each case pins a measured-on-TPU
-round-2 outcome (scripts/exp_gather_calib2.py, exp_global_threshold.py):
+"""Auto format-routing regressions — each case pins a routing outcome
+of the cost model (its constants were fitted before the GPU port and
+wait for the refit, ROADMAP Speed #6):
 
 * pure-band matrices -> BandedBlocks (2.7x fewer bytes than windowed
   tiles; auto picking windowed here measured 1.5x slower CG iterations),
@@ -13,14 +14,14 @@ round-2 outcome (scripts/exp_gather_calib2.py, exp_global_threshold.py):
 import numpy as np
 import jax.numpy as jnp
 
-from sparsematrixmultiplicationmpi_tpu.formats.banded import BandedBlocks
-from sparsematrixmultiplicationmpi_tpu.formats.matrix import COO, BucketedELL
-from sparsematrixmultiplicationmpi_tpu.formats.windowed import WindowedPairs
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.formats.banded import BandedBlocks
+from sparsematrixmultiplicationmpi_jax.formats.matrix import COO, BucketedELL
+from sparsematrixmultiplicationmpi_jax.formats.windowed import WindowedPairs
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, fem3d_csr, generate_fat_vector, powerlaw_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format, spmm_any
-from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format, spmm_any
+from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
 
 def _check(operand, csr, k=3):
@@ -80,18 +81,16 @@ def test_heavy_skew_small_k_routes_to_coo():
 
 
 def test_auto_routes_diffuse_planar_to_windowed():
-    """Roadnet-class routing (round-4 TPU sweep regression): auto's
-    windowed build gate must compare against the caller's REAL gather
-    estimate, and the inflation RATIO must not veto small-byte builds —
-    on the full roadnet stand-in the refused windowed path measured
-    9.9 ms vs the COO fallback's 80 ms on hardware."""
+    """Roadnet-class routing: auto's windowed build gate must compare
+    against the caller's REAL gather estimate, and the inflation RATIO
+    must not veto small-byte builds."""
     import numpy as np
 
-    from sparsematrixmultiplicationmpi_tpu.formats.windowed import (
+    from sparsematrixmultiplicationmpi_jax.formats.windowed import (
         WindowedPairs,
     )
-    from sparsematrixmultiplicationmpi_tpu.io.generate import roadnet_like
-    from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format
+    from sparsematrixmultiplicationmpi_jax.io.generate import roadnet_like
+    from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format
 
     csr = roadnet_like(scale=0.1).astype(np.float32)
     op = auto_format(csr, k_nominal=6)
@@ -99,19 +98,18 @@ def test_auto_routes_diffuse_planar_to_windowed():
 
 
 def test_spill_majority_guard_refuses_mixed_band_scatter():
-    """Round-5 threshold-ladder regression (results/auto_threshold_tpu
-    .json): a banded base + 75 % uniform off-band entries drives the
-    windowed split to ~74 % spill, where the built format measured 2.1x
-    SLOWER than the pure gather path (8.74 vs 4.08 ms on v5e). The
-    auto-search must refuse such tilings (SPILL_FRAC_REFUSE); a caller
-    pinning block_rows still gets an explicit build."""
+    """Spill-majority guard: a banded base + 75 % uniform off-band
+    entries drives the windowed split to ~74 % spill, where the built
+    format is the wrong class. The auto-search must refuse such tilings
+    (SPILL_FRAC_REFUSE); a caller pinning block_rows still gets an
+    explicit build."""
     import scipy.sparse as sp
 
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import CSR
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import CSR
 
     base = banded_csr(30_000, 150, 12, seed=75)
     rnd_nnz = int(base.nnz * 0.75 / 0.25)
-    from sparsematrixmultiplicationmpi_tpu.io.generate import random_csr
+    from sparsematrixmultiplicationmpi_jax.io.generate import random_csr
 
     rnd = random_csr(30_000, 30_000, rnd_nnz, seed=76)
     a = sp.csr_matrix((np.asarray(base.values),

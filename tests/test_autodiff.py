@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sparsematrixmultiplicationmpi_tpu import CSR, generate_fat_vector
-from sparsematrixmultiplicationmpi_tpu.io.generate import banded_csr, random_csr
-from sparsematrixmultiplicationmpi_tpu.ops.autodiff import (
+from sparsematrixmultiplicationmpi_jax import CSR, generate_fat_vector
+from sparsematrixmultiplicationmpi_jax.io.generate import banded_csr, random_csr
+from sparsematrixmultiplicationmpi_jax.ops.autodiff import (
     make_spmm, make_symmetric_spmm, transpose_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format
+from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format
 
 
 def test_transpose_csr():

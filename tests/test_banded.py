@@ -4,16 +4,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import CSR, generate_fat_vector, max_abs_error
-from sparsematrixmultiplicationmpi_tpu.formats.banded import (
+from sparsematrixmultiplicationmpi_jax import CSR, generate_fat_vector, max_abs_error
+from sparsematrixmultiplicationmpi_jax.formats.banded import (
     BandedBlocks, band_coverage,
 )
-from sparsematrixmultiplicationmpi_tpu.formats.matrix import BucketedELL
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.formats.matrix import BucketedELL
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, powerlaw_csr, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format, spmm, spmm_any
-from sparsematrixmultiplicationmpi_tpu.ops.banded import spmm_banded
+from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format, spmm, spmm_any
+from sparsematrixmultiplicationmpi_jax.ops.banded import spmm_banded
 
 
 def test_band_coverage():
@@ -84,13 +84,13 @@ def test_block_rows_validation():
 
 
 def test_auto_format_selection():
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import COO
-    from sparsematrixmultiplicationmpi_tpu.formats.windowed import (
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import COO
+    from sparsematrixmultiplicationmpi_jax.formats.windowed import (
         WindowedPairs,
     )
 
     band = banded_csr(600, 20, 8, seed=75)
-    # Banded structure must land on an MXU (dense-tile) format.
+    # Banded structure must land on a dense-tile format.
     assert isinstance(
         auto_format(band, candidates=(128,)), (WindowedPairs, BandedBlocks)
     )
@@ -118,7 +118,7 @@ def test_spmm_banded_bf16_band_f32_vector():
     """bf16-stored band x f32 fat vector: accumulate in f32, bf16-level
     accuracy (the half-traffic production mode)."""
     import jax.numpy as jnp
-    from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+    from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
     csr = banded_csr(300, 8, 6, seed=85)
     bb = BandedBlocks.from_csr(csr, block_rows=8).astype(jnp.bfloat16)

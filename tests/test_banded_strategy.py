@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import CSR, generate_fat_vector, max_abs_error
-from sparsematrixmultiplicationmpi_tpu.formats.reorder import (
+from sparsematrixmultiplicationmpi_jax import CSR, generate_fat_vector, max_abs_error
+from sparsematrixmultiplicationmpi_jax.formats.reorder import (
     apply_symmetric_permutation, bandwidth, rcm_ordering,
 )
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, cop20k_like, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.parallel import (
+from sparsematrixmultiplicationmpi_jax.parallel import (
     BandedRowWise, get_strategy, make_mesh,
 )
 
@@ -120,7 +120,7 @@ def test_banded_row_wise_skewed_spill_tail():
     """A power-law spill must not inflate the ELL planes to m x max_row
     (observed 7 GB OOM pre-fix); overflow rides the nnz-sharded COO tail
     and the result stays correct."""
-    from sparsematrixmultiplicationmpi_tpu.io.generate import powerlaw_csr
+    from sparsematrixmultiplicationmpi_jax.io.generate import powerlaw_csr
 
     csr = powerlaw_csr(4000, 4000, 40000, seed=171)
     mesh = make_mesh(4)
@@ -133,7 +133,7 @@ def test_banded_row_wise_skewed_spill_tail():
         assert operand.tail_values is not None
     v = jnp.asarray(generate_fat_vector(4000, 5, seed=172))
     out = np.asarray(strat.spmm(operand, v, mesh))
-    from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+    from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
     oracle = spmm_host_f64(csr, np.asarray(v))
     np.testing.assert_allclose(out, oracle, atol=1e-8)

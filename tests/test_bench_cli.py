@@ -6,13 +6,13 @@ import json
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu.bench.harness import (
+from sparsematrixmultiplicationmpi_jax.bench.harness import (
     CSV_COLUMNS, roofline_bytes, run_benchmark, sweep, write_csv, write_json,
 )
-from sparsematrixmultiplicationmpi_tpu.cli import main as cli_main
-from sparsematrixmultiplicationmpi_tpu.io.generate import random_csr
-from sparsematrixmultiplicationmpi_tpu.io.mtx import write_matrix_market
-from sparsematrixmultiplicationmpi_tpu.parallel import RowWise, make_mesh
+from sparsematrixmultiplicationmpi_jax.cli import main as cli_main
+from sparsematrixmultiplicationmpi_jax.io.generate import random_csr
+from sparsematrixmultiplicationmpi_jax.io.mtx import write_matrix_market
+from sparsematrixmultiplicationmpi_jax.parallel import RowWise, make_mesh
 
 
 def test_run_benchmark_record():
@@ -98,10 +98,10 @@ def test_cli_info(capsys):
 def test_comparator_condition_scale_cancellation():
     """A catastrophically cancelling row must pass under the forward-
     error bound (tol * sum|terms|) while staying strict without it —
-    the round-4 TPU sweep's powerlaw_100k k=12 false MISMATCH class."""
+    the powerlaw_100k k=12 false MISMATCH class."""
     import numpy as np
 
-    from sparsematrixmultiplicationmpi_tpu.utils.compare import (
+    from sparsematrixmultiplicationmpi_jax.utils.compare import (
         are_matrices_equal,
     )
 
@@ -129,11 +129,11 @@ def test_run_benchmark_cancelling_matrix_passes():
     import jax.numpy as jnp
     import numpy as np
 
-    from sparsematrixmultiplicationmpi_tpu.bench.harness import (
+    from sparsematrixmultiplicationmpi_jax.bench.harness import (
         run_benchmark,
     )
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import COO
-    from sparsematrixmultiplicationmpi_tpu.parallel import Auto, make_mesh
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import COO
+    from sparsematrixmultiplicationmpi_jax.parallel import Auto, make_mesh
 
     rng = np.random.default_rng(7)
     m = 256

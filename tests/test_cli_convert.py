@@ -2,16 +2,16 @@
 
 import numpy as np
 
-from sparsematrixmultiplicationmpi_tpu.cli import main as cli_main
-from sparsematrixmultiplicationmpi_tpu.formats.reorder import (
+from sparsematrixmultiplicationmpi_jax.cli import main as cli_main
+from sparsematrixmultiplicationmpi_jax.formats.reorder import (
     apply_symmetric_permutation, bandwidth,
 )
-from sparsematrixmultiplicationmpi_tpu.formats.serialize import load_format
-from sparsematrixmultiplicationmpi_tpu.io.generate import banded_csr
-from sparsematrixmultiplicationmpi_tpu.io.mtx import (
+from sparsematrixmultiplicationmpi_jax.formats.serialize import load_format
+from sparsematrixmultiplicationmpi_jax.io.generate import banded_csr
+from sparsematrixmultiplicationmpi_jax.io.mtx import (
     read_matrix_market, write_matrix_market,
 )
-from sparsematrixmultiplicationmpi_tpu import max_abs_error
+from sparsematrixmultiplicationmpi_jax import max_abs_error
 
 
 def test_reorder_command(tmp_path, capsys):

@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sparsematrixmultiplicationmpi_tpu import CSR, generate_fat_vector
-from sparsematrixmultiplicationmpi_tpu.io.generate import banded_csr
-from sparsematrixmultiplicationmpi_tpu.models import (
+from sparsematrixmultiplicationmpi_jax import CSR, generate_fat_vector
+from sparsematrixmultiplicationmpi_jax.io.generate import banded_csr
+from sparsematrixmultiplicationmpi_jax.models import (
     gcn_forward, gcn_loss, init_gcn, make_train_step, normalize_adjacency,
     synthetic_node_classification, topk_eigsh,
 )
-from sparsematrixmultiplicationmpi_tpu.parallel import (
+from sparsematrixmultiplicationmpi_jax.parallel import (
     BandedRowWise, RowWise, make_mesh,
 )
 

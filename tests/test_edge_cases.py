@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import (
+from sparsematrixmultiplicationmpi_jax import (
     CSR, BucketedELL, ELL, generate_fat_vector, max_abs_error,
     spmm_bucketed, spmm_ell, spmm_sequential,
 )
-from sparsematrixmultiplicationmpi_tpu.io.generate import random_csr
-from sparsematrixmultiplicationmpi_tpu.parallel import (
+from sparsematrixmultiplicationmpi_jax.io.generate import random_csr
+from sparsematrixmultiplicationmpi_jax.parallel import (
     NonZeroElement, RowWise, make_mesh,
 )
 

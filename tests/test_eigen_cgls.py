@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sparsematrixmultiplicationmpi_tpu import CSR, BucketedELL, spmm_bucketed
-from sparsematrixmultiplicationmpi_tpu.io.generate import banded_csr, random_csr
-from sparsematrixmultiplicationmpi_tpu.models import cgls, lanczos, topk_eigsh
-from sparsematrixmultiplicationmpi_tpu.ops.autodiff import make_spmm
+from sparsematrixmultiplicationmpi_jax import CSR, BucketedELL, spmm_bucketed
+from sparsematrixmultiplicationmpi_jax.io.generate import banded_csr, random_csr
+from sparsematrixmultiplicationmpi_jax.models import cgls, lanczos, topk_eigsh
+from sparsematrixmultiplicationmpi_jax.ops.autodiff import make_spmm
 
 
 def _sym_csr(n=60, seed=211, shift=6.0):
@@ -47,7 +47,7 @@ def test_cgls_overdetermined():
     # min ||A x - b|| with A (80 x 30): normal-equations solution.
     csr = random_csr(80, 30, 500, seed=213)
     f = make_spmm(csr)
-    from sparsematrixmultiplicationmpi_tpu.ops.autodiff import transpose_csr
+    from sparsematrixmultiplicationmpi_jax.ops.autodiff import transpose_csr
 
     ft = _closure(transpose_csr(csr))
     rng = np.random.default_rng(214)
@@ -60,7 +60,7 @@ def test_cgls_overdetermined():
 
 def test_cgls_1d_rhs():
     csr = random_csr(40, 25, 300, seed=215)
-    from sparsematrixmultiplicationmpi_tpu.ops.autodiff import transpose_csr
+    from sparsematrixmultiplicationmpi_jax.ops.autodiff import transpose_csr
 
     f = _closure(csr)
     ft = _closure(transpose_csr(csr))
@@ -84,7 +84,7 @@ def test_preconditioned_cg_fewer_iterations():
     csr = CSR.from_dense(a)
     spmm = _closure(csr)
     b = jnp.asarray(rng.normal(size=n))
-    from sparsematrixmultiplicationmpi_tpu.models import conjugate_gradient
+    from sparsematrixmultiplicationmpi_jax.models import conjugate_gradient
 
     plain = conjugate_gradient(spmm, b, tol=1e-10, max_iter=2000)
     inv_d = jnp.asarray(1.0 / diag)
@@ -99,10 +99,10 @@ def test_preconditioned_cg_fewer_iterations():
 
 def test_multi_head_gat():
     import jax
-    from sparsematrixmultiplicationmpi_tpu.models.gat import (
+    from sparsematrixmultiplicationmpi_jax.models.gat import (
         init_gat, multi_head_gat,
     )
-    from sparsematrixmultiplicationmpi_tpu.models import (
+    from sparsematrixmultiplicationmpi_jax.models import (
         synthetic_node_classification,
     )
 

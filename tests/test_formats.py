@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import (
+from sparsematrixmultiplicationmpi_jax import (
     CSR, COO, ELL, BucketedELL, max_abs_error,
 )
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     powerlaw_csr, random_csr,
 )
 
@@ -146,17 +146,17 @@ def test_duplicate_coordinates_sum_in_densifying_formats():
     import numpy as np
     import jax.numpy as jnp
 
-    from sparsematrixmultiplicationmpi_tpu.formats.banded import (
+    from sparsematrixmultiplicationmpi_jax.formats.banded import (
         BandedBlocks,
     )
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import COO
-    from sparsematrixmultiplicationmpi_tpu.formats.windowed import (
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import COO
+    from sparsematrixmultiplicationmpi_jax.formats.windowed import (
         WindowedPairs,
     )
-    from sparsematrixmultiplicationmpi_tpu.io.generate import (
+    from sparsematrixmultiplicationmpi_jax.io.generate import (
         banded_csr, generate_fat_vector,
     )
-    from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+    from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
     base = banded_csr(256, 10, 4, seed=31).astype(np.float32)
     coo = base.to_coo()
@@ -184,8 +184,8 @@ def test_duplicate_coordinates_sum_in_densifying_formats():
     out_b = np.asarray(bb @ vec)
     assert np.abs(out_b - oracle).max() / scale < 5e-3
 
-    from sparsematrixmultiplicationmpi_tpu.parallel import make_mesh
-    from sparsematrixmultiplicationmpi_tpu.parallel.windowed_strategy \
+    from sparsematrixmultiplicationmpi_jax.parallel import make_mesh
+    from sparsematrixmultiplicationmpi_jax.parallel.windowed_strategy \
         import WindowedRowWise
 
     mesh = make_mesh(2)

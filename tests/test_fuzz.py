@@ -9,17 +9,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import (
+from sparsematrixmultiplicationmpi_jax import (
     BucketedELL, ELL, generate_fat_vector, max_abs_error,
     spmm_bucketed, spmm_ell, spmm_sequential,
 )
-from sparsematrixmultiplicationmpi_tpu.formats.banded import BandedBlocks
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.formats.banded import BandedBlocks
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, powerlaw_csr, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format, spmm_any
-from sparsematrixmultiplicationmpi_tpu.ops.banded import spmm_banded
-from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format, spmm_any
+from sparsematrixmultiplicationmpi_jax.ops.banded import spmm_banded
+from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
 
 def _random_case(seed):
@@ -72,8 +72,8 @@ def test_fuzz_windowed_row_mesh(seed):
     prepare — every combination must match the host f64 oracle. The
     halo rebase arithmetic (windows, multi-hop, tail ownership) is
     exactly the kind of index bookkeeping fuzzing catches."""
-    from sparsematrixmultiplicationmpi_tpu.parallel import make_mesh
-    from sparsematrixmultiplicationmpi_tpu.parallel.windowed_strategy \
+    from sparsematrixmultiplicationmpi_jax.parallel import make_mesh
+    from sparsematrixmultiplicationmpi_jax.parallel.windowed_strategy \
         import WindowedRowWise
 
     rng = np.random.default_rng(seed)
@@ -85,7 +85,7 @@ def test_fuzz_windowed_row_mesh(seed):
     elif kind == "powerlaw":
         csr = powerlaw_csr(m, m, int(rng.integers(4, 15)) * m, seed=seed)
     else:
-        from sparsematrixmultiplicationmpi_tpu.io.generate import fem3d_csr
+        from sparsematrixmultiplicationmpi_jax.io.generate import fem3d_csr
 
         csr = fem3d_csr(m, int(rng.integers(8, 20)) * m, seed=seed)
     p = int(rng.choice([1, 2, 4, 8]))

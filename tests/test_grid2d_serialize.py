@@ -5,23 +5,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import (
+from sparsematrixmultiplicationmpi_jax import (
     BucketedELL, CSR, generate_fat_vector, max_abs_error, spmm_bucketed,
 )
-from sparsematrixmultiplicationmpi_tpu.formats.banded import BandedBlocks
-from sparsematrixmultiplicationmpi_tpu.formats.serialize import (
+from sparsematrixmultiplicationmpi_jax.formats.banded import BandedBlocks
+from sparsematrixmultiplicationmpi_jax.formats.serialize import (
     load_format, save_format,
 )
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, powerlaw_csr, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.models import (
+from sparsematrixmultiplicationmpi_jax.models import (
     conjugate_gradient, pagerank,
 )
-from sparsematrixmultiplicationmpi_tpu.models.pagerank import (
+from sparsematrixmultiplicationmpi_jax.models.pagerank import (
     _normalize_columns,
 )
-from sparsematrixmultiplicationmpi_tpu.parallel import (
+from sparsematrixmultiplicationmpi_jax.parallel import (
     BandedRowWise, Grid2D, RowWise, get_strategy, make_mesh, make_mesh_2d,
 )
 

@@ -9,16 +9,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, generate_fat_vector, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.parallel import (
+from sparsematrixmultiplicationmpi_jax.parallel import (
     NonZeroElement, RowWise, make_mesh,
 )
-from sparsematrixmultiplicationmpi_tpu.parallel.banded_strategy import (
+from sparsematrixmultiplicationmpi_jax.parallel.banded_strategy import (
     BandedRowWise,
 )
-from sparsematrixmultiplicationmpi_tpu.utils.collectives import (
+from sparsematrixmultiplicationmpi_jax.utils.collectives import (
     collective_stats, compiled_hlo,
 )
 
@@ -59,7 +59,7 @@ def test_banded_row_wise_spill_adds_one_all_gather():
     # Inject off-band entries to force a spill.
     import numpy as np
 
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import COO
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import COO
 
     coo = csr.to_coo()
     rng = np.random.default_rng(3)

@@ -8,14 +8,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sparsematrixmultiplicationmpi_tpu.formats.hub import (
+from sparsematrixmultiplicationmpi_jax.formats.hub import (
     HubExtracted, split_hub_columns,
 )
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     dc1_like, generate_fat_vector, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.auto import auto_format, spmm_any
-from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+from sparsematrixmultiplicationmpi_jax.ops.auto import auto_format, spmm_any
+from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
 
 def test_split_hub_columns_roundtrip():

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import (
+from sparsematrixmultiplicationmpi_jax import (
     CSR, max_abs_error, read_matrix_market, write_matrix_market,
 )
-from sparsematrixmultiplicationmpi_tpu.io.mtx import read_matrix_market_numpy
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.io.mtx import read_matrix_market_numpy
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     generate_fat_vector, random_csr,
 )
 
@@ -167,10 +167,10 @@ def test_fat_vector_deterministic():
 # banner lines, complex kind, skew-symmetry.
 
 def _load_both(path):
-    from sparsematrixmultiplicationmpi_tpu.io.mtx import (
+    from sparsematrixmultiplicationmpi_jax.io.mtx import (
         read_matrix_market, read_matrix_market_numpy,
     )
-    from sparsematrixmultiplicationmpi_tpu.io import native
+    from sparsematrixmultiplicationmpi_jax.io import native
 
     out = [read_matrix_market_numpy(str(path))]
     if native.available():
@@ -234,8 +234,8 @@ def test_loader_cage4_shaped_fixture(tmp_path):
     comments — batch_test.sh:15's smoke matrix; the real file cannot be
     fetched offline and the reference repo ships none, so the fixture is
     a synthetic twin with identical dims/nnz/kind)."""
-    from sparsematrixmultiplicationmpi_tpu.io.generate import cage4_like
-    from sparsematrixmultiplicationmpi_tpu.io.mtx import write_matrix_market
+    from sparsematrixmultiplicationmpi_jax.io.generate import cage4_like
+    from sparsematrixmultiplicationmpi_jax.io.mtx import write_matrix_market
 
     csr = cage4_like()
     p = tmp_path / "cage4_like.mtx"
@@ -274,10 +274,10 @@ def test_roadnet_like_structure():
     recover O(sqrt(m))-class bandwidth from the shuffled labels."""
     import numpy as np
 
-    from sparsematrixmultiplicationmpi_tpu.formats.reorder import (
+    from sparsematrixmultiplicationmpi_jax.formats.reorder import (
         rcm_ordering,
     )
-    from sparsematrixmultiplicationmpi_tpu.io.generate import roadnet_like
+    from sparsematrixmultiplicationmpi_jax.io.generate import roadnet_like
 
     csr = roadnet_like(scale=0.005, seed=2)
     m = csr.shape[0]
@@ -299,7 +299,7 @@ def test_dc1_like_structure():
     load-imbalance regime the reference's nnz strategy targets)."""
     import numpy as np
 
-    from sparsematrixmultiplicationmpi_tpu.io.generate import dc1_like
+    from sparsematrixmultiplicationmpi_jax.io.generate import dc1_like
 
     csr = dc1_like(scale=0.02, seed=3)
     dense = np.asarray(csr.to_dense())
@@ -314,7 +314,7 @@ def test_amazon0302_like_structure():
     """Twin of SNAP/amazon0302 (reference matrix-impact sweep family):
     pattern values, out-degree cap 5, strong id locality with a
     long-range tail, unsymmetric, no diagonal."""
-    from sparsematrixmultiplicationmpi_tpu.io.generate import (
+    from sparsematrixmultiplicationmpi_jax.io.generate import (
         amazon0302_like,
     )
 

@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sparsematrixmultiplicationmpi_tpu import BucketedELL, CSR, spmm_bucketed
-from sparsematrixmultiplicationmpi_tpu.io.generate import banded_csr, random_csr
-from sparsematrixmultiplicationmpi_tpu.models import (
+from sparsematrixmultiplicationmpi_jax import BucketedELL, CSR, spmm_bucketed
+from sparsematrixmultiplicationmpi_jax.io.generate import banded_csr, random_csr
+from sparsematrixmultiplicationmpi_jax.models import (
     conjugate_gradient, gcn_forward, gcn_loss, init_gcn, jacobi,
     make_train_step, normalize_adjacency, pagerank, power_iteration,
     synthetic_node_classification,
 )
-from sparsematrixmultiplicationmpi_tpu.models.pagerank import (
+from sparsematrixmultiplicationmpi_jax.models.pagerank import (
     _normalize_columns,
 )
 
@@ -123,10 +123,10 @@ def test_gcn_training_learns():
 
 
 def test_gat_layer():
-    from sparsematrixmultiplicationmpi_tpu.models.gat import (
+    from sparsematrixmultiplicationmpi_jax.models.gat import (
         gat_layer, init_gat, segment_softmax,
     )
-    from sparsematrixmultiplicationmpi_tpu.models import (
+    from sparsematrixmultiplicationmpi_jax.models import (
         synthetic_node_classification,
     )
 

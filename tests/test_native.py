@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import max_abs_error, write_matrix_market
-from sparsematrixmultiplicationmpi_tpu.io import native
-from sparsematrixmultiplicationmpi_tpu.io.generate import powerlaw_csr, random_csr
-from sparsematrixmultiplicationmpi_tpu.io.mtx import read_matrix_market_numpy
+from sparsematrixmultiplicationmpi_jax import max_abs_error, write_matrix_market
+from sparsematrixmultiplicationmpi_jax.io import native
+from sparsematrixmultiplicationmpi_jax.io.generate import powerlaw_csr, random_csr
+from sparsematrixmultiplicationmpi_jax.io.mtx import read_matrix_market_numpy
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native parser unavailable (no g++)"
@@ -33,7 +33,7 @@ def test_parity_general(tmp_path):
 
 def test_parity_symmetric(tmp_path):
     d = np.asarray(random_csr(40, 40, 200, seed=92).to_dense())
-    from sparsematrixmultiplicationmpi_tpu import CSR
+    from sparsematrixmultiplicationmpi_jax import CSR
 
     _roundtrip(tmp_path, CSR.from_dense(d + d.T), symmetric=True)
 
@@ -76,39 +76,10 @@ def test_native_truncated(tmp_path):
 
 def test_native_default_in_read(tmp_path):
     # read_matrix_market prefers the native path transparently.
-    from sparsematrixmultiplicationmpi_tpu.io.mtx import read_matrix_market
+    from sparsematrixmultiplicationmpi_jax.io.mtx import read_matrix_market
 
     csr = random_csr(30, 30, 150, seed=95)
     path = str(tmp_path / "m.mtx")
     write_matrix_market(path, csr)
     out = read_matrix_market(path)
     assert max_abs_error(out.to_dense(), csr.to_dense()) == 0.0
-
-
-def test_native_split_bit_identical_to_ml_dtypes():
-    """native/tilesplit.cpp must reproduce ml_dtypes' round-to-nearest-
-    even f32->bf16 split bit-for-bit, including specials (NaN, inf,
-    signed zero, subnormals) — the split planes feed the production
-    3-pass kernel, so a rounding divergence would silently change
-    results between machines with and without a compiler."""
-    import ml_dtypes
-    import numpy as np
-    import pytest
-
-    from sparsematrixmultiplicationmpi_tpu.formats.native_split import (
-        available, split_bf16_hilo_native,
-    )
-
-    if not available():
-        pytest.skip("no native compiler")
-    rng = np.random.default_rng(5)
-    x = (rng.standard_normal((77, 130))
-         * np.exp(rng.uniform(-60, 60, (77, 130)))).astype(np.float32)
-    x[0, :7] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40]
-    got = split_bf16_hilo_native(x)
-    hi = x.astype(ml_dtypes.bfloat16)
-    with np.errstate(invalid="ignore"):
-        lo = (x - hi.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    ref = np.concatenate([hi, lo], axis=-1)
-    np.testing.assert_array_equal(got.view(np.uint16),
-                                  ref.view(np.uint16))

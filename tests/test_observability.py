@@ -5,13 +5,13 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from sparsematrixmultiplicationmpi_tpu.bench.harness import run_benchmark, sweep
-from sparsematrixmultiplicationmpi_tpu.bench.plots import render_all
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.bench.harness import run_benchmark, sweep
+from sparsematrixmultiplicationmpi_jax.bench.plots import render_all
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     generate_fat_vector, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.parallel import RowWise, make_mesh
-from sparsematrixmultiplicationmpi_tpu.utils.profiling import (
+from sparsematrixmultiplicationmpi_jax.parallel import RowWise, make_mesh
+from sparsematrixmultiplicationmpi_jax.utils.profiling import (
     annotate, comm_comp_split, trace,
 )
 
@@ -63,7 +63,7 @@ def test_render_all_plots(tmp_path):
 
 
 def test_render_report(tmp_path):
-    from sparsematrixmultiplicationmpi_tpu.bench.report import render_report
+    from sparsematrixmultiplicationmpi_jax.bench.report import render_report
 
     mats = {"cop20k_like_mini": random_csr(60, 60, 400, seed=126)}
     records = sweep(mats, ks=[2, 32], strategy_names=["row", "nnz"],
@@ -78,7 +78,7 @@ def test_render_report(tmp_path):
 
 def test_time_fn_amortized():
     import jax.numpy as jnp
-    from sparsematrixmultiplicationmpi_tpu.utils.timing import (
+    from sparsematrixmultiplicationmpi_jax.utils.timing import (
         measure_amortized, time_fn_amortized,
     )
 
@@ -108,7 +108,7 @@ def test_amortized_resolves_substantial_kernel():
     """A kernel with real per-iteration cost must produce a resolved,
     positive slope (guards against over-aggressive NaN-ing)."""
     import jax.numpy as jnp
-    from sparsematrixmultiplicationmpi_tpu.utils.timing import (
+    from sparsematrixmultiplicationmpi_jax.utils.timing import (
         measure_amortized,
     )
 
@@ -125,8 +125,8 @@ def test_report_renders_below_resolution_rows():
     """Sub-resolution rows must render as '< bound', never as a time or a
     throughput (the round-1 REPORT.md printed 1.7e6 Gnnz/s for a 49-nnz
     matrix — VERDICT weak #2)."""
-    from sparsematrixmultiplicationmpi_tpu.bench.harness import BenchRecord
-    from sparsematrixmultiplicationmpi_tpu.bench.report import render_report
+    from sparsematrixmultiplicationmpi_jax.bench.harness import BenchRecord
+    from sparsematrixmultiplicationmpi_jax.bench.report import render_report
 
     nan = float("nan")
     common = dict(matrix="cage4_like", m=9, n=9, nnz=49, k=1,

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import (
+from sparsematrixmultiplicationmpi_jax import (
     CSR, ELL, BucketedELL,
     generate_fat_vector, max_abs_error,
     spmm_bcoo, spmm_bucketed, spmm_coo, spmm_dense, spmm_ell,
     spmm_sequential, to_bcoo,
 )
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, cage4_like, dc1_like, powerlaw_csr, random_csr,
     roadnet_like,
 )
@@ -115,7 +115,7 @@ def test_dense_oracle_matches_numpy():
 
 
 def test_sddmm_matches_dense():
-    from sparsematrixmultiplicationmpi_tpu.ops.sddmm import sddmm
+    from sparsematrixmultiplicationmpi_jax.ops.sddmm import sddmm
 
     csr = random_csr(30, 20, 150, seed=220)
     rng = np.random.default_rng(221)
@@ -129,7 +129,7 @@ def test_sddmm_matches_dense():
 
 
 def test_sddmm_scaled_and_grad():
-    from sparsematrixmultiplicationmpi_tpu.ops.sddmm import sddmm
+    from sparsematrixmultiplicationmpi_jax.ops.sddmm import sddmm
 
     csr = random_csr(16, 16, 60, seed=222)
     rng = np.random.default_rng(223)
@@ -148,7 +148,7 @@ def test_sddmm_scaled_and_grad():
 
 
 def test_sddmm_shape_mismatch():
-    from sparsematrixmultiplicationmpi_tpu.ops.sddmm import sddmm
+    from sparsematrixmultiplicationmpi_jax.ops.sddmm import sddmm
 
     csr = random_csr(8, 8, 20, seed=224)
     with pytest.raises(ValueError):

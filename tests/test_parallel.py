@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu import generate_fat_vector, max_abs_error
-from sparsematrixmultiplicationmpi_tpu.formats.matrix import CSR
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax import generate_fat_vector, max_abs_error
+from sparsematrixmultiplicationmpi_jax.formats.matrix import CSR
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, cage4_like, powerlaw_csr, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.parallel import (
+from sparsematrixmultiplicationmpi_jax.parallel import (
     ColumnWise, Library, NonZeroElement, RowWise, Sequential, get_strategy,
     make_mesh,
 )
@@ -145,7 +145,7 @@ def test_row_wise_skewed_tail(mesh):
     dense[3, :] = rng.normal(size=m)
     light = rng.uniform(size=(m, m)) < 0.05
     dense += np.where(light, rng.normal(size=(m, m)), 0.0)
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import CSR as _CSR
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import CSR as _CSR
     csr = _CSR.from_dense(dense)
     strat = RowWise()
     operand = strat.prepare(csr, mesh)
@@ -159,14 +159,14 @@ def test_row_wise_skewed_tail(mesh):
 
 def test_grid2d_skewed_tail():
     import numpy as np
-    from sparsematrixmultiplicationmpi_tpu.parallel import Grid2D, make_mesh_2d
+    from sparsematrixmultiplicationmpi_jax.parallel import Grid2D, make_mesh_2d
     rng = np.random.default_rng(301)
     m = 48
     dense = np.zeros((m, m))
     dense[7, :] = rng.normal(size=m)
     light = rng.uniform(size=(m, m)) < 0.08
     dense += np.where(light, rng.normal(size=(m, m)), 0.0)
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import CSR as _CSR
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import CSR as _CSR
     csr = _CSR.from_dense(dense)
     mesh2 = make_mesh_2d(4, 2)
     strat = Grid2D()
@@ -183,17 +183,16 @@ def test_auto_multidevice_dispatch(mesh):
     """Auto on a multi-device mesh: banded matrices get the halo strategy,
     scattered matrices the hybrid row-wise; both match the oracle.
 
-    Routing is by the measured single-chip cost model (round 5 replaced
-    the unmeasured coverage >= 0.5 gate — VERDICT r4 weak #6;
-    results/auto_threshold_tpu.json). The band here is mid-sized: at
+    Routing is by the single-device cost model (it replaced an
+    unmeasured coverage >= 0.5 gate). The band here is mid-sized: at
     toy scale (the old 128-row band) the banded format's own inflation
     gate refuses dense-band storage, so the model correctly routes
     tiny bands to windowed tiles instead."""
-    from sparsematrixmultiplicationmpi_tpu.parallel import Auto
-    from sparsematrixmultiplicationmpi_tpu.parallel.banded_strategy import (
+    from sparsematrixmultiplicationmpi_jax.parallel import Auto
+    from sparsematrixmultiplicationmpi_jax.parallel.banded_strategy import (
         BandedRowOperand,
     )
-    from sparsematrixmultiplicationmpi_tpu.parallel.strategies import (
+    from sparsematrixmultiplicationmpi_jax.parallel.strategies import (
         HybridRowOperand,
     )
 
@@ -207,7 +206,7 @@ def test_auto_multidevice_dispatch(mesh):
     # Diffuse at scale: dense tiles can't clear the per-tile occupancy
     # threshold, so the gather-class hybrid wins. (At toy scale —
     # the old 1000x1000/6000 — the model routes to windowed: streaming
-    # a few dense MB beats thousands of per-row gathers on v5e.)
+    # a few dense MB beats thousands of per-row gathers in the model.)
     scattered = random_csr(4000, 4000, 24000, seed=311)
     op2 = auto.prepare(scattered, mesh)
     assert isinstance(op2, HybridRowOperand)
@@ -216,11 +215,12 @@ def test_auto_multidevice_dispatch(mesh):
 
 
 def test_bf16_through_strategies(mesh):
-    """bf16 values flow through the distributed strategies (TPU-native
-    production dtype), with bf16-scale accuracy vs the f64 oracle."""
+    """bf16 values flow through the distributed strategies (the
+    half-bandwidth production dtype), with bf16-scale accuracy vs the f64
+    oracle."""
     csr = banded_csr(96, 4, 3, seed=320).astype(jnp.bfloat16)
     v = jnp.asarray(generate_fat_vector(96, 4, seed=321), jnp.bfloat16)
-    from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
+    from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
 
     oracle = spmm_host_f64(csr, np.asarray(v, np.float64))
     scale = max(float(np.max(np.abs(oracle))), 1.0)

@@ -10,13 +10,13 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from sparsematrixmultiplicationmpi_tpu.bench.harness import (
+from sparsematrixmultiplicationmpi_jax.bench.harness import (
     BenchRecord, read_csv, remeasure_record, suspicious_records,
     write_csv,
 )
-from sparsematrixmultiplicationmpi_tpu.bench.report import render_report
-from sparsematrixmultiplicationmpi_tpu.io.generate import banded_csr
-from sparsematrixmultiplicationmpi_tpu.parallel.mesh import make_mesh
+from sparsematrixmultiplicationmpi_jax.bench.report import render_report
+from sparsematrixmultiplicationmpi_jax.io.generate import banded_csr
+from sparsematrixmultiplicationmpi_jax.parallel.mesh import make_mesh
 
 
 def _rec(**kw):
@@ -24,7 +24,7 @@ def _rec(**kw):
         matrix="m", m=100, n=100, nnz=1000, k=6, strategy="auto",
         devices=1, execution_time=1e-3, prepare_time=0.0, correct=True,
         max_error=0.0, gflops=1.0, gnnz_per_s=1.0,
-        roofline_fraction=0.3, dtype="float32", device_kind="TPU v5 lite",
+        roofline_fraction=0.3, dtype="float32", device_kind="NVIDIA H200",
         gathered=True,
     )
     base.update(kw)

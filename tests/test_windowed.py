@@ -5,19 +5,21 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sparsematrixmultiplicationmpi_tpu.formats.windowed import WindowedPairs
-from sparsematrixmultiplicationmpi_tpu.io.generate import (
+from sparsematrixmultiplicationmpi_jax.formats.windowed import WindowedPairs
+from sparsematrixmultiplicationmpi_jax.io.generate import (
     banded_csr, fem3d_csr, generate_fat_vector, powerlaw_csr, random_csr,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.oracle import spmm_host_f64
-from sparsematrixmultiplicationmpi_tpu.ops.pallas_windowed import (
+from sparsematrixmultiplicationmpi_jax.ops.oracle import spmm_host_f64
+from sparsematrixmultiplicationmpi_jax.ops.pallas_windowed import (
     spmm_windowed_pallas,
 )
-from sparsematrixmultiplicationmpi_tpu.ops.windowed import (
+from sparsematrixmultiplicationmpi_jax.ops.windowed import (
     spmm_windowed, spmm_windowed_xla,
 )
 
 SMALL = dict(candidates=(8, 16, 32))
+#: Tile shapes the Triton kernel takes (rows >= 16).
+SMALL_KERNEL = dict(candidates=(16, 32))
 
 
 def _families():
@@ -97,7 +99,7 @@ def test_windowed_refuses_scatter_matrices():
 
 def test_windowed_pallas_interpret_parity():
     csr = fem3d_csr(2000, 40000, seed=71)
-    wp = WindowedPairs.from_csr(csr, **SMALL).astype(np.float32)
+    wp = WindowedPairs.from_csr(csr, **SMALL_KERNEL).astype(np.float32)
     for k in (1, 6, 32):
         v = jnp.asarray(generate_fat_vector(csr.shape[1], k, seed=72),
                         dtype=jnp.float32)
@@ -110,9 +112,8 @@ def test_windowed_pallas_interpret_parity():
 
 def test_windowed_empty_blocks_get_dummy_coverage():
     """Row blocks whose every tile falls below the dense threshold get a
-    dummy zero tile at build time (the auto-pipelined Pallas kernel only
-    writes blocks it visits), and their entries come back through the
-    spill path."""
+    dummy zero tile at build time, and their entries come back through
+    the spill path — on the XLA path and through the kernel."""
     m = 2048
     rows = np.arange(0, 64)  # a dense cluster in block 0
     dense = np.zeros((m, m))
@@ -124,12 +125,12 @@ def test_windowed_empty_blocks_get_dummy_coverage():
     rr = rng.choice(np.arange(256, m), size=400, replace=False)
     cc = rng.integers(0, m, size=400)
     dense[rr, cc] = 5.0
-    from sparsematrixmultiplicationmpi_tpu.formats.matrix import CSR
+    from sparsematrixmultiplicationmpi_jax.formats.matrix import CSR
 
     csr = CSR.from_dense(dense)
     # margin disabled: this pins dummy-coverage/spill mechanics, not the
     # windowed-vs-gather routing economics (auto owns that decision)
-    wp = WindowedPairs.from_csr(csr, block_rows=8, reorder=None,
+    wp = WindowedPairs.from_csr(csr, block_rows=16, reorder=None,
                                 beat_gather_margin=1e9)
     assert wp is not None and wp.spill is not None
     counts = np.diff(np.asarray(wp.block_ptr))
@@ -142,10 +143,14 @@ def test_windowed_empty_blocks_get_dummy_coverage():
     oracle = spmm_host_f64(csr, np.asarray(v))
     np.testing.assert_allclose(
         np.asarray(spmm_windowed(wp, v)), oracle, atol=1e-9)
-    vp = wp.encode(v)
+    # The kernel takes f32/bf16 tiles; f32 is exact on these values up to
+    # accumulation rounding.
+    wp32 = wp.astype(np.float32)
+    vp = wp32.encode(v.astype(jnp.float32))
     np.testing.assert_allclose(
-        np.asarray(wp.decode(spmm_windowed_pallas(wp, vp, interpret=True))),
-        oracle, atol=1e-9)
+        np.asarray(wp32.decode(
+            spmm_windowed_pallas(wp32, vp, interpret=True))),
+        oracle, rtol=1e-6, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype,rtol", [(np.float32, 5e-3),
@@ -174,165 +179,10 @@ def test_windowed_nonsquare_skips_reorder():
     )
 
 
-def test_chunk_slabs_split_accuracy():
-    """The bf16 hi/lo decomposition carries ~16-17 mantissa bits: the
-    f32 residual x - hi is exact (Sterbenz), but storing it in bf16
-    rounds again, so hi + lo == x only to ~4e-6 relative."""
-    from sparsematrixmultiplicationmpi_tpu.ops.pallas_windowed import (
-        chunk_slabs,
-    )
-
-    rng = np.random.default_rng(111)
-    v = jnp.asarray(rng.standard_normal((256, 8)) * 1e3,
-                    dtype=jnp.float32)
-    (packed,) = chunk_slabs(v, C=128, split=True, interpret=True)
-    assert packed.shape == (2, 8, 256)  # hi|lo lane-packed
-    rec = (np.asarray(packed[:, :, :128], np.float32)
-           + np.asarray(packed[:, :, 128:], np.float32))
-    ref = np.asarray(jnp.swapaxes(v.reshape(2, 128, 8), 1, 2))
-    rel = np.max(np.abs(rec - ref) / (np.abs(ref) + 1e-30))
-    assert rel < 1e-5, rel
-    (plain,) = chunk_slabs(v, C=128, split=False, interpret=True)
-    np.testing.assert_array_equal(np.asarray(plain), ref)
-
-
-def test_windowed_split3_accuracy_noninteger():
-    """The 3-pass split-bf16 f32 kernel must hold ~1e-4 relative error
-    on NON-integer data (integer fixtures are bf16-exact and hide split
-    rounding). Documented f32 tier is 5e-3 relative
-    (utils/compare.py::default_tolerance)."""
-    csr = fem3d_csr(2000, 40000, seed=131)
-    # Replace values with awkward non-dyadic floats.
-    import dataclasses
-
-    rng = np.random.default_rng(132)
-    vals = (rng.uniform(0.1, 10.0, csr.nnz) * np.pi).astype(np.float32)
-    csr = dataclasses.replace(csr, values=jnp.asarray(vals))
-    wp = WindowedPairs.from_csr(csr, **SMALL)
-    assert wp is not None and wp.tiles_split is not None
-    v = jnp.asarray(
-        np.random.default_rng(133).uniform(-1, 1, (csr.shape[1], 8)),
-        dtype=jnp.float32)
-    oracle = spmm_host_f64(csr, np.asarray(v, np.float64))
-    vp = wp.encode(v)
-    out = np.asarray(
-        wp.decode(spmm_windowed_pallas(wp, vp, interpret=True)),
-        np.float64)
-    # Scale-aware relative error: row sums cancel to near zero for a
-    # symmetric v, so normalize by the output's overall scale.
-    rel = np.max(np.abs(out - oracle)) / np.abs(oracle).max()
-    assert rel < 1e-3, rel
-
-
-def test_step_scalars_even_runs():
-    """The two-pairs-per-step kernel's prefetch scalars: every block's
-    run is even (builder contract) and `first` marks exactly the first
-    step of each block's run."""
-    from sparsematrixmultiplicationmpi_tpu.ops.pallas_windowed import (
-        _step_scalars,
-    )
-
-    csr = fem3d_csr(2000, 40000, seed=141)
-    # Pin the kernel generation under test: this exercises the TWO-pair
-    # scalars regardless of the production default.
-    wp = WindowedPairs.from_csr(csr, pairs_per_step=2,
-                                beat_gather_margin=1e9,
-                                allow_spill=False, **SMALL)
-    pb = np.asarray(wp.pair_block)
-    counts = np.bincount(pb, minlength=wp.n_blocks)
-    assert (counts % 2 == 0).all() and (counts >= 2).all()
-    pb2, pce, pco, first = (np.asarray(x) for x in
-                            _step_scalars(wp.pair_block, wp.pair_chunk))
-    assert len(pb2) == len(pb) // 2
-    # pairs 2s and 2s+1 always share a block
-    assert (pb[0::2] == pb[1::2]).all()
-    expect_first = np.concatenate([[1], (pb2[1:] != pb2[:-1])]).astype(int)
-    np.testing.assert_array_equal(first, expect_first)
-    assert first.sum() == wp.n_blocks
-
-
-def _tmulti_raw(wp, v_p, U, *, split=True):
-    """Compose the raw transposed U-pair kernel the way the dispatch
-    does: pad the pair list, transpose the planes, build slabs, run,
-    transpose back."""
-    from sparsematrixmultiplicationmpi_tpu.ops.pallas_windowed import (
-        _pad_pairs_multi, chunk_slabs, windowed_matmul_tmulti,
-    )
-
-    src = wp.tiles_split if split else wp.tiles
-    pb, pc, ts = _pad_pairs_multi(
-        wp.pair_block, wp.pair_chunk, src, wp.n_blocks, U)
-    assert len(pb) % U == 0
-    ts_t = jnp.swapaxes(jnp.asarray(ts), 1, 2)
-    slab_dtype = jnp.float32 if split else wp.tiles.dtype
-    (slabs,) = chunk_slabs(v_p.astype(slab_dtype), C=wp.chunk_cols,
-                           split=split, interpret=True)
-    out_t = windowed_matmul_tmulti(
-        jnp.asarray(pb), jnp.asarray(pc), ts_t, slabs,
-        nb=wp.n_blocks, pairs_per_step=U, split=split, interpret=True)
-    k = out_t.shape[1]
-    return jnp.swapaxes(out_t, 1, 2).reshape(wp.n_blocks * wp.block_rows,
-                                             k)
-
-
-@pytest.mark.parametrize("U", [4, 8])
-def test_windowed_multi_pair_kernel_matches_oracle(U):
-    """U-pairs-per-step transposed kernel (interpret mode): steps span
-    block boundaries freely; only a global <=U-1 zero-tile tail pad is
-    required. Differential vs the host f64 oracle with the spill path
-    composed via _finish."""
-    from sparsematrixmultiplicationmpi_tpu.ops.windowed import _finish
-
-    csr = fem3d_csr(2000, 40000, seed=151).astype(jnp.float32)
-    wp = WindowedPairs.from_csr(csr, block_rows=32, chunk_cols=128)
-    assert wp is not None
-    v = generate_fat_vector(csr.shape[1], 8, seed=152).astype(np.float32)
-    oracle = spmm_host_f64(csr, v)
-    v_p = wp.encode(jnp.asarray(v))
-    out = _tmulti_raw(wp, v_p, U)
-    got = np.asarray(wp.decode(_finish(wp, out, v_p)))
-    rel = np.abs(got - oracle).max() / np.abs(oracle).max()
-    assert rel < 5e-3  # documented f32 split3 tier
-
-
-def test_windowed_multi_pair_bf16_exact_small_ints():
-    """Single-plane bf16 mode is exact on small-integer data (products
-    exact in bf16, f32 accumulator). f32 single-plane is REJECTED by the
-    kernel (DEFAULT dot would truncate silently)."""
-    from sparsematrixmultiplicationmpi_tpu.ops.pallas_windowed import (
-        _pad_pairs_multi, chunk_slabs, windowed_matmul_tmulti,
-    )
-    from sparsematrixmultiplicationmpi_tpu.ops.windowed import _finish
-
-    csr = banded_csr(600, 20, 7, seed=153).astype(jnp.bfloat16)
-    wp = WindowedPairs.from_csr(csr, block_rows=16, chunk_cols=128)
-    assert wp is not None
-    v = generate_fat_vector(csr.shape[1], 16, seed=154).astype(np.float32)
-    oracle = spmm_host_f64(csr, v)
-    v_p = wp.encode(jnp.asarray(v, jnp.bfloat16))
-    out = _tmulti_raw(wp, v_p, 8, split=False)
-    got = np.asarray(wp.decode(_finish(wp, out, v_p)))
-    np.testing.assert_allclose(got, oracle, atol=1e-4)
-
-    # f32 single-plane guard
-    pb, pc, ts = _pad_pairs_multi(
-        wp.pair_block, wp.pair_chunk,
-        np.asarray(wp.tiles, np.float32), wp.n_blocks, 8)
-    (slabs,) = chunk_slabs(v_p.astype(jnp.float32), C=wp.chunk_cols,
-                           split=False, interpret=True)
-    with pytest.raises(ValueError, match="split"):
-        windowed_matmul_tmulti(
-            jnp.asarray(pb), jnp.asarray(pc),
-            jnp.swapaxes(jnp.asarray(ts), 1, 2), slabs,
-            nb=wp.n_blocks, pairs_per_step=8, split=False,
-            interpret=True)
-
-
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_windowed_format_pairs_per_step_8_dispatch(dtype):
     """A format built with pairs_per_step=8 pads globally (no even-run
-    padding) and spmm_windowed_pallas dispatches it through the
-    multi-pair kernel end-to-end."""
+    padding) and spmm_windowed_pallas runs it end-to-end."""
     csr = fem3d_csr(2000, 40000, seed=161).astype(dtype)
     wp = WindowedPairs.from_csr(csr, block_rows=32, chunk_cols=128,
                                 pairs_per_step=8)
@@ -348,45 +198,21 @@ def test_windowed_format_pairs_per_step_8_dispatch(dtype):
     assert rel < (5e-3 if dtype == jnp.float32 else 3e-2)
 
 
-def test_windowed_multi_pair_many_flushes_per_step():
-    """R=8 blocks on a narrow band make pair runs of ~1-2 per block, so a
-    U=8 step crosses several block boundaries — stressing the in-step
-    flush sequencing (stage reuse waits the previous DMA)."""
-    from sparsematrixmultiplicationmpi_tpu.ops.windowed import _finish
-
-    csr = banded_csr(800, 30, 10, seed=171).astype(jnp.float32)
-    # pairs_per_step=2 pinned: the raw short-run structure (before any
-    # global tail pad) is what stresses the in-step flush sequencing.
-    wp = WindowedPairs.from_csr(csr, block_rows=8, chunk_cols=128,
-                                beat_gather_margin=1e9,
-                                allow_spill=False, pairs_per_step=2)
-    assert wp is not None
-    runs = np.diff(np.asarray(wp.block_ptr))
-    assert runs.max() <= 4  # short runs: steps really do span blocks
-    v = generate_fat_vector(csr.shape[1], 8, seed=172).astype(np.float32)
-    oracle = spmm_host_f64(csr, v)
-    v_p = wp.encode(jnp.asarray(v))
-    out = _tmulti_raw(wp, v_p, 8)
-    got = np.asarray(wp.decode(_finish(wp, out, v_p)))
-    rel = np.abs(got - oracle).max() / np.abs(oracle).max()
-    assert rel < 5e-3
-
-
 @pytest.mark.parametrize("pps", [2, 8])
 @pytest.mark.parametrize("k", [1, 6, 12])
 def test_windowed_core_kpad_forced_pallas(pps, k):
-    """Sub-sublane k forced through the Pallas kernel: the core pads the
-    fat vector to the next sublane multiple (Mosaic cannot lower k%8!=0
-    dots) and slices the result back — padded columns must not leak and
-    the contraction must match the XLA path on the real columns."""
-    from sparsematrixmultiplicationmpi_tpu.ops.windowed import (
+    """Narrow k forced through the Triton kernel: the wrapper pads the
+    fat vector to 16 columns (``pl.dot``'s minimum) and slices the
+    result back — padded columns must not leak and the contraction must
+    match the XLA path on the real columns."""
+    from sparsematrixmultiplicationmpi_jax.ops.windowed import (
         spmm_windowed_core,
     )
 
     csr = fem3d_csr(2000, 40000, seed=91)
     wp = WindowedPairs.from_csr(
         csr, pairs_per_step=pps, beat_gather_margin=1e9,
-        allow_spill=False, **SMALL).astype(np.float32)
+        allow_spill=False, **SMALL_KERNEL).astype(np.float32)
     v = jnp.asarray(generate_fat_vector(csr.shape[1], k, seed=92),
                     dtype=jnp.float32)
     vp = wp.encode(v)
